@@ -1,6 +1,6 @@
 """Uniform periodic Cartesian grid (pure metadata + coordinates).
 
-The TPU-native replacement of the reference's PETSc-DMDA grid
+The replacement of the reference's PETSc-DMDA grid
 (KSFD/ksfdgrid.py:60-483).  There is no domain decomposition object:
 fields are plain JAX arrays of shape ``(dof, nx[, ny[, nz]])`` and
 distribution is expressed with ``jax.sharding.NamedSharding`` over a

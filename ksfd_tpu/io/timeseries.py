@@ -11,7 +11,7 @@ File-format parity with the reference (KSFD/ksfdtimeseries.py:73-671):
 - linear interpolation retrieve_by_time, temp_close/reopen crash
   safety, open retries for flaky network filesystems.
 
-TPU-native additions: '/solver_state' (t, dt, lastvart, JAX PRNG key,
+Additions here: '/solver_state' (t, dt, lastvart, JAX PRNG key,
 step counter) written by the checkpoint monitor so resume is bit-exact
 — the reference restores only t/dt/lastvart and restarts its RNG from
 the seed (SURVEY §5.4) — and the VIRTUAL SLAB VIEW: a single-process
@@ -30,7 +30,6 @@ import time
 import traceback
 
 import numpy as np
-import h5py
 
 from ..utils.debug import logger
 from ..utils.exceptions import KSFDException
@@ -239,6 +238,10 @@ class TimeSeries:
         return name_self
 
     def open_with_retry(self, fname=None, mode=None):
+        # imported here: only runs that save, checkpoint or read a
+        # series need h5py
+        import h5py
+
         fname = fname or self.filename
         mode = mode or self.mode
         try:
@@ -556,7 +559,7 @@ class TimeSeries:
 class Gatherer:
     """Iterate over all per-rank files of one run prefix.
 
-    The TPU runtime writes one file per process (usually just s1r0),
+    The runtime writes one file per process (usually just s1r0),
     but this also reads multi-rank sets produced elsewhere
     (reference: KSFD/ksfdtimeseries.py:674-828).  Yields TimeSeries
     objects opened read-only, exposing .rank/.size and .ranges when

@@ -6,7 +6,7 @@ dependency DAG by topological sort; lambdifies every parameter into a
 function of time; and provides the potential V(Us, rho).
 
 Reference parity: SolutionParameters in KSFD/ksfdsoln.py:58-347.
-TPU-native addition: time-dependent parameters are *also* compiled to
+Addition here: time-dependent parameters are *also* compiled to
 JAX-traceable functions of t (``td_jax``), so the PDE right-hand side
 can evaluate them from a traced time inside jit — the analog of the
 reference's split of constants vs time-dependent symbols flowing into

@@ -2,7 +2,7 @@
 
 The stage right-hand sides of a Rosenbrock/DIRK step differ from the
 step-base RHS by an amount proportional to the stage increment.  A
-float32 kernel cannot evaluate f(U_i) directly to useful accuracy on
+float32 evaluation cannot give f(U_i) directly to useful accuracy on
 O(1e4) states (state quantization alone is ~6e-4 absolute), but it CAN
 evaluate the DIFFERENCE f(u0 + d) - f(u0) to ~1e-7 relative accuracy
 of the difference — provided every subtraction of large, nearly-equal
@@ -21,14 +21,13 @@ rewrite on the sympy expression tree:
     1/(a + da) - 1/a        ->  -da / (a*(a + da))
 
 All identities are EXACT; only their floating-point evaluation
-differs from the naive difference.  This powers the Pallas delta-RHS
-kernel (ops/pallas_stencil.py) that replaces 3 of the 4 float64 stage
-RHS evaluations per implicit step.
+differs from the naive difference.  This powers
+PDEOperators.rhs_delta, which replaces 3 of the 4 float64 stage RHS
+evaluations per implicit step.
 
 The reference has no counterpart — it evaluates every stage RHS with
 full-precision compiled C ufuncs (KSFD/ksfdsym.py:902-940); this is a
-TPU-native mixed-precision design in the spirit of iterative
-refinement.
+mixed-precision design in the spirit of iterative refinement.
 """
 
 import sympy as sy
@@ -45,8 +44,8 @@ class UnsupportedDelta(KSFDException):
 
 #: sympy Function heads emitted by the rewrite, with their JAX
 #: implementations (passed as an extra module dict to lambdify).
-#: where_ replaces sympy Piecewise because the jax printer lowers
-#: Piecewise to jnp.select, whose argmax has no Mosaic lowering.
+#: where_ replaces sympy Piecewise: a plain two-way select instead of
+#: the jax printer's jnp.select lowering.
 log1p = sy.Function("log1p")
 expm1 = sy.Function("expm1")
 where_ = sy.Function("where_")

@@ -1,6 +1,6 @@
 """The Keller-Segel PDE operator: RHS, free energy G, velocity, J-action.
 
-This is the TPU-native counterpart of the reference's Derivatives class
+This is the counterpart of the reference's Derivatives class
 (KSFD/ksfdsym.py:145-1209).  The same math, assembled symbolically:
 
 - free energy   G = V(U..) + Vcap(rho) + s2*log(rho)
@@ -14,7 +14,7 @@ This is the TPU-native counterpart of the reference's Derivatives class
 
 but compiled differently: the pointwise nonlinearity (G) is a
 sympy->JAX function and the stencil operators are shifted-array linear
-combinations, all fused by XLA into TPU kernels under jit.  The
+combinations, all fused by XLA into device kernels under jit.  The
 analytically assembled sparse Jacobian + ksfdMat machinery
 (KSFD/ksfdsym.py:630-886) is replaced by the exact matrix-free
 Jacobian action ``jax.jvp(rhs)``; its stiff constant-coefficient part
@@ -145,7 +145,7 @@ class PDEOperators:
             for f in fields
         ]
         # cancellation-free increment form G(u + d) - G(u) (the
-        # stage-delta kernel's pointwise core); None when the
+        # pointwise core of rhs_delta); None when the
         # expression has no known rewrite (ops/delta.py).  Signature:
         # (fields0..., deltas..., shifted_fields..., t) — the shifted
         # state is a separate input so float32 evaluation survives
@@ -185,15 +185,71 @@ class PDEOperators:
 
     def stage_delta_ok(self):
         """True when stage RHS evaluations may use the increment form
-        f(u0 + d) = f(u0) + [delta kernel], i.e. the PDE coefficients
-        carry no explicit time dependence (the stages sit at shifted
-        times t + alpha_i*h; time-dependent SOURCES are corrected
-        exactly outside the kernel by the solver)."""
+        f(u0 + d) = f(u0) + rhs_delta(...), i.e. the free energy has an
+        increment rewrite, the drift uses the product-rule form that
+        rhs_delta differentiates, and the PDE coefficients carry no
+        explicit time dependence (the stages sit at shifted times
+        t + alpha_i*h; time-dependent SOURCES are corrected exactly by
+        the solver)."""
         return (
             self._G_delta_fn is not None
+            and not self.flux_form
             and not self._G_tdep
             and not self._lig_tdep
         )
+
+    def _mean_groomed(self, u, i):
+        """float64 mean of field i over its groomed (floor-clamped,
+        NaN -> floor) view, as ops.rhs sees the state."""
+        lo = self.rhomin if i == 0 else self.Umin
+        f = u[i].astype(jnp.float64)
+        return jnp.mean(jnp.where(f >= lo, f, lo))
+
+    def rhs_delta(self, u0, d, u1, t):
+        """The source-free increment rhs(u1) - rhs(u0) in float32,
+        accurate to ~f32 eps RELATIVE TO THE INCREMENT.
+
+        u0 must be groomed; u1 = groom(u0 + inc) and d = u1 - u0 are
+        formed in f64 by the caller (u1 is passed separately: f32(u0)
+        + f32(d) cannot recover a clamped-to-floor u1).  Product rule
+        of div(rho grad G) for the increment:
+
+          d(drho) = grad(d_rho).grad(Gs) + grad(rho0c).grad(dG)
+                  + d_rho*lap(Gs) + rho0*lap(dG),   Gs = G0c + dG,
+
+        where dG is the cancellation-free increment of G (ops/delta.py)
+        and G0c, rho0c are centred on their f64 means, so no stencil
+        ever differences the O(1e4) fields themselves in float32.
+        Requires stage_delta_ok().
+        """
+        f32 = jnp.float32
+        nf = self.nligands + 1
+        means = [self._mean_groomed(u0, i) for i in range(nf)]
+        G_mean = self._G_fn(*means, t).astype(f32)
+        t = jnp.asarray(t, f32)
+        u0, d, u1 = (a.astype(f32) for a in (u0, d, u1))
+        rho0, Us0 = u0[0], [u0[1 + l] for l in range(nf - 1)]
+        drho, dUs = d[0], [d[1 + l] for l in range(nf - 1)]
+        dG = self._G_delta_fn(
+            rho0, *Us0, drho, *dUs, *[u1[i] for i in range(nf)], t
+        )
+        Gs = self._G_fn(rho0, *Us0, t) - G_mean + dG
+        rho0c = rho0 - means[0].astype(f32)
+        grad = lambda f: grad_apply(f, self.spacing, self.sw)
+        lap = lambda f: laplacian_apply(f, self.spacing, self.sw)
+        graddot = lambda a, b: sum(
+            x * y for x, y in zip(grad(a), grad(b))
+        )
+        outs = [
+            graddot(drho, Gs) + graddot(rho0c, dG)
+            + drho * lap(Gs) + rho0 * lap(dG)
+        ]
+        for l, c in enumerate(self._lig_coeffs):
+            outs.append(
+                -c["gamma"](t) * dUs[l] + c["s"](t) * drho
+                + c["D"](t) * lap(dUs[l])
+            )
+        return jnp.stack(outs, axis=0)
 
     # ------------------------------------------------------------------
     def groom(self, u):
@@ -267,7 +323,7 @@ class PDEOperators:
     def jacobian_action(self, u, t, v, groom=True):
         """Exact Jacobian-vector product d(rhs)/du @ v via jax.jvp.
 
-        The TPU-native replacement of the assembled sparse Jacobian +
+        The matrix-free replacement of the assembled sparse Jacobian +
         MatSetValuesStencil path (KSFD/ksfdsym.py:630-886,
         cython/ksfdMat/ksfdMat.pyx).
         """

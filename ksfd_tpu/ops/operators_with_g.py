@@ -6,7 +6,7 @@ rho, the ligands, and G — G is recomputed in place into the state
 inside drhodt and ends up stored in every snapshot, so offline
 analysis can read the free-energy landscape directly.
 
-TPU-native equivalent: WithGOperators works on a (nligands+2)-dof
+Equivalent here: WithGOperators works on a (nligands+2)-dof
 state whose last slot mirrors G.  The PDE derivatives are computed
 from the physical fields exactly as in PDEOperators (the G slot's
 time derivative is zero inside the implicit solve); ``refresh_G``
@@ -70,6 +70,10 @@ class WithGOperators(PDEOperators):
         return jnp.concatenate(
             [dphys, jnp.zeros_like(u[-1])[None]], axis=0
         )
+
+    def stage_delta_ok(self):
+        # rhs_delta models the physical fields only, not the G slot
+        return False
 
     def velocity(self, u, t=None):
         phys, _ = self.split(u)

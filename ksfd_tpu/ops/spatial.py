@@ -1,6 +1,6 @@
 """SpatialExpression: evaluate a sympy expression of x,y,z,t on a grid.
 
-The TPU-native counterpart of the reference's SpatialExpression
+The counterpart of the reference's SpatialExpression
 (KSFD/ksfdsym.py:1515-1697): instead of compiling a C ufunc over
 coordinate arrays it compiles a JAX-traceable function, so sources can
 be evaluated inside the jitted time step with a traced ``t``.

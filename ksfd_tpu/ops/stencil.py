@@ -4,8 +4,8 @@ Coefficients are generated with sympy's
 ``Derivative.as_finite_difference`` over the star stencil of half-width
 ``sw`` (offsets -sw..sw), matching the reference's construction
 (KSFD/ksfdsym.py:391-436 via KSFD/ksfdgrid.py:155-156: sw = 1 +
-degree//2).  On TPU these coefficients become the weights of shifted
-reads (jnp.roll) fused by XLA, or of Pallas stencil kernels.
+degree//2).  On the device these coefficients become the weights of
+shifted reads (jnp.roll) fused by XLA.
 
 Also provides the exact Fourier symbols of the discrete operators,
 used by the spectral preconditioner: on a periodic uniform grid the
@@ -125,8 +125,8 @@ def real_dft_basis(n):
 
     Column 2k/2k+1 hold the cos/sin pair of frequency k; Q is
     orthogonal (Q Q^T = I) so transforms are plain matmuls — the
-    MXU-friendly, float64-safe alternative to an FFT (TPU XLA has no
-    f64 FFT, and the CPU FFT thunk is layout-fragile under SPMD).
+    matmul-unit-friendly, float64-safe alternative to an FFT (the CPU
+    FFT thunk is layout-fragile under SPMD).
     The column ordering matches ``dft_mode_freqs(n)``.
     """
     i = np.arange(n)[:, None]

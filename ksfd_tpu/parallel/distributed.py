@@ -4,7 +4,7 @@ The reference runs 16 MPI ranks over 4 nodes (README.txt:5-10,
 options84s16.sh); each rank owns a DMDA block and writes its own
 HDF5 file '<name>s<size>r<rank>.h5' (KSFD/ksfdtimeseries.py:188-243).
 
-The TPU-native equivalent: one JAX *process* per host, all devices
+The equivalent here: one JAX *process* per host, all devices
 joined into one global mesh by ``jax.distributed``, with XLA SPMD
 handling every collective.  Each process writes the slab of the state
 it can address locally into its own reference-named slab file

@@ -7,9 +7,9 @@ the SAME decomposition is expressed declaratively: the state array
 (dof, nx[, ny[, nz]]) gets a NamedSharding over a Mesh whose axes
 split the spatial dimensions, and XLA's SPMD partitioner inserts the
 halo collective-permutes for the shifted stencil reads and the
-all-to-alls for the spectral preconditioner's FFTs.  Periodic
-wraparound maps to the ring topology of the collectives — ICI
-neighbors on real TPU slices.
+all-reduces of the spectral preconditioner's basis transforms.
+Periodic wraparound is the collective-permute from the last shard to
+the first.
 """
 
 import numpy as np
@@ -25,6 +25,7 @@ __all__ = [
     "state_sharding",
     "distribute",
     "mesh_shape_for",
+    "sharding_mesh",
 ]
 
 SPATIAL_AXES = ("x", "y", "z")
@@ -34,23 +35,22 @@ def mesh_shape_for(n_devices, grid_dims, nps=None):
     """Split n_devices over up to grid_dims mesh axes.
 
     Choosing the decomposition is the framework's job (the reference's
-    DMDA picks its own process grid, KSFD/ksfdgrid.py:388-411), so the
-    default must keep the fast path alive: for 2D/3D grids an X-ONLY
-    split is preferred whenever every shard keeps 8-row-aligned tiles
-    (nx % (8*n_devices) == 0) — the fused Pallas kernels require the
-    leading spatial axis to be the only sharded one (pallas_mesh_ok),
-    and a balanced factoring like (4, 2) would silently drop every
-    multi-chip run to the XLA path.  Falls back to the most-balanced
-    factoring otherwise (or when nps is unknown).  nps (points per
-    axis) also caps each mesh axis so a tiny grid never gets
-    oversharded.
+    DMDA picks its own process grid, KSFD/ksfdgrid.py:388-411).  For
+    2D/3D grids an X-ONLY split (slabs) is preferred whenever the
+    devices divide nx: the block preconditioner's sharded apply
+    (linalg.make_sharded_block_apply) contracts only the x axis
+    locally and needs ONE all-reduce per apply on an x-only mesh, and
+    slabs exchange halos with two neighbours only.  Falls back to the
+    most-balanced factoring otherwise (or when nps is unknown).  nps
+    (points per axis) also caps each mesh axis so a tiny grid never
+    gets oversharded.
     """
     if grid_dims == 1:
         shape = [n_devices]
     elif (
         nps is not None
         and n_devices > 1
-        and int(nps[0]) % (8 * n_devices) == 0
+        and int(nps[0]) % n_devices == 0
     ):
         shape = [n_devices] + [1] * (grid_dims - 1)
     else:
@@ -117,3 +117,11 @@ def distribute(u, grid, devices=None, mesh=None, shape=None):
         mesh = grid_mesh(grid, devices=devices, shape=shape)
     sharded = jax.device_put(u, state_sharding(mesh))
     return sharded, mesh
+
+
+def sharding_mesh(u):
+    """The Mesh behind an array's NamedSharding over >1 device, or None."""
+    sh = getattr(u, "sharding", None)
+    if isinstance(sh, NamedSharding) and len(sh.device_set) > 1:
+        return sh.mesh
+    return None

@@ -30,7 +30,7 @@ Selected by numerics ``ksp_type='lu'``.  Complexity is the classic
 sparse-direct one (2D fill ~O(N^1.5)): exact and unconditionally
 robust on small/medium grids, while the spectral-preconditioned
 iterative stack remains the at-scale default (its role in the
-reference is played by MUMPS only because PETSc has no TPU).
+reference is played by MUMPS only because PETSc has no GPU path here).
 """
 
 import numpy as np

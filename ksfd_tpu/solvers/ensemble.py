@@ -2,8 +2,8 @@
 
 The reference runs one options file per process (its only parallelism
 is spatial domain decomposition, KSFD/ksfdgrid.py:1-4); parameter
-sweeps and noise ensembles there mean N separate cluster jobs.  On
-TPU the natural "free" axis (SURVEY §2 "Parallelism strategies") is
+sweeps and noise ensembles there mean N separate cluster jobs.  On an
+accelerator the natural "free" axis (SURVEY §2 "Parallelism strategies") is
 batch-of-trajectories data parallelism: the jitted implicit step is
 `jax.vmap`-ped over a leading member axis, every member carries its
 own (t, h, PRNG key, controller state) on the host, and the member
@@ -20,8 +20,7 @@ streak, exactly like Solver._chunk_rej_streak), CFL clamp, noise
 injection with per-member keys, and worm-count conservation.
 Trajectories are identical to the scalar loop's up to the
 mixed-precision cross-compilation envelope (vmapped step vs scalar
-step are different XLA executables; see docs/PERF.md "f32 combination
-passes").
+step are different XLA executables).
 
 Usage:
     es = EnsembleSolver(ops, numerics, t0=.., dt=.., tmax=..,
@@ -134,16 +133,12 @@ class EnsembleSolver:
         self.tableau = get_tableau(self.numerics.ts_type)
         self.block_steps = int(block_steps)
         self.member_offset = int(member_offset)
-        # The vmapped step functions are built lazily in solve(): on
-        # unsharded members the fused Pallas kernels batch through
-        # their jax.custom_batching rules (pallas_stencil).  A SHARDED
-        # member axis cannot partition the batched pallas_call grid
-        # dimension directly, so sharded ensembles wrap the vmapped
-        # step in jax.shard_map over the member mesh instead: each
-        # device runs the batched kernels on its local members with
-        # ZERO collectives (the trajectories are independent by
-        # construction — the compiled HLO is collective-free,
-        # tests/test_ensemble.py::test_sharded_members_keep_pallas).
+        # The vmapped step functions are built lazily in solve().
+        # Sharded ensembles wrap the vmapped step in jax.shard_map
+        # over the member mesh: each device runs the batched step on
+        # its local members with ZERO collectives (the trajectories
+        # are independent by construction — the compiled HLO is
+        # collective-free, tests/test_ensemble.py).
         self._vstep = None
         self._vmulti = None
         self._vchunk = None
@@ -210,36 +205,32 @@ class EnsembleSolver:
     def _extract_member_mesh(U):
         """Classify the member placement of U for _build_steps.
 
-        Returns None (single device: batched kernels run directly),
-        a 1D Mesh (shard_members-style NamedSharding over the leading
-        member axis only: shard_map the batched step over it), or
-        False (multi-device but not a recoverable member-axis
-        NamedSharding: sharding-transparent XLA step)."""
-        from jax.sharding import NamedSharding, PartitionSpec
+        Returns a 1D Mesh for a shard_members-style NamedSharding over
+        the leading member axis only (shard_map the batched step over
+        it), else None (single device, or a sharding the plain jitted
+        step handles transparently)."""
+        from jax.sharding import NamedSharding
 
         sh = getattr(U, "sharding", None)
-        if sh is None or len(sh.device_set) <= 1:
+        if not isinstance(sh, NamedSharding) or len(sh.device_set) <= 1:
             return None
-        if not isinstance(sh, NamedSharding):
-            return False
         mesh, spec = sh.mesh, sh.spec
         if len(mesh.axis_names) != 1:
-            return False
+            return None
         axis = mesh.axis_names[0]
         if len(spec) < 1 or spec[0] != axis:
-            return False
+            return None
         if any(s is not None for s in spec[1:]):
-            return False
+            return None
         if U.shape[0] % mesh.devices.size:
-            return False
+            return None
         return mesh
 
     def _wrap_members(self, vfn, n_in, n_out):
         """jit a member-batched device function, shard_mapped over the
         member mesh when one is active.  Every input and output is
         member-leading, so in/out specs are P(member_axis) throughout
-        and the body is collective-free (check_vma off: pallas_call
-        outputs carry no vma)."""
+        and the body is collective-free."""
         if self._member_mesh is None:
             return jax.jit(vfn)
         from jax.sharding import PartitionSpec
@@ -255,42 +246,25 @@ class EnsembleSolver:
         )
 
     def _build_steps(self, member_mesh):
-        """(Re)build the vmapped step functions for the input flavor.
+        """(Re)build the vmapped step functions for the input placement.
 
-        member_mesh: None for single-device members; a 1D Mesh for
-        members sharded over devices (solve() extracts it from the
-        input sharding).  Sharded members run the SAME batched step —
-        fused Pallas kernels included — inside shard_map over that
-        mesh; only a sharding whose mesh cannot be recovered drops to
-        the XLA step (solve() passes member_mesh=False then)."""
-        import dataclasses
-
-        if member_mesh is False:
-            flavor = "xla"
-            self._member_mesh = None
-            self._member_axis = None
-        elif member_mesh is not None:
+        member_mesh: None for members on one device (or a sharding the
+        jitted step handles transparently); a 1D Mesh for members
+        sharded over devices (solve() extracts it from the input
+        sharding), which runs the SAME batched step inside shard_map
+        over that mesh."""
+        if member_mesh is not None:
             flavor = "smap:%s" % id(member_mesh)
-            self._member_mesh = member_mesh
             self._member_axis = member_mesh.axis_names[0]
         else:
-            flavor = "auto"
-            self._member_mesh = None
+            flavor = "plain"
             self._member_axis = None
+        self._member_mesh = member_mesh
         if self._vstep_flavor == flavor:
             return
         nm = self.numerics
-        if flavor == "xla":
-            nm = dataclasses.replace(nm, use_pallas=False)
-        self._nm_eff = nm
-        # single-device members live on ONE device (verified by the
-        # caller) and shard_map bodies are single-device by
-        # construction, so the unsharded batched kernels are safe even
-        # on a multi-device backend — opt out of make_step_fn's guard
-        unsharded_ok = flavor != "xla"
         step, _ = make_step_fn(
             self.ops, nm, atol=self.atol, rtol=self.rtol,
-            unsharded_ok=unsharded_ok,
         )
         self._vstep = self._wrap_members(jax.vmap(step), 3, 2)
         self._vmulti = None
@@ -299,7 +273,6 @@ class EnsembleSolver:
 
             multi, _ = make_multistep_fn(
                 self.ops, nm, atol=self.atol, rtol=self.rtol,
-                unsharded_ok=unsharded_ok,
             )
             if self._member_mesh is None:
                 self._vmulti = jax.jit(
@@ -341,7 +314,6 @@ class EnsembleSolver:
                 self.ops, nm, atol=self.atol, rtol=self.rtol,
                 max_attempts=128,
                 cfl_safety=chunk_cfl_safety(self.ps),
-                unsharded_ok=unsharded_ok,
             )
             self._vchunk = self._wrap_members(jax.vmap(chunk), 5, 6)
         self._vfallback = None
@@ -354,15 +326,14 @@ class EnsembleSolver:
             import dataclasses
 
             nm = dataclasses.replace(
-                self._nm_eff, ksp_type="gmres_scipy",
+                self.numerics, ksp_type="gmres_scipy",
                 ksp_restart=12, ksp_max_it=4, stage_delta=False,
                 # DIRK retries escalate the Newton count like the
                 # scalar Solver._get_fallback (rosw ignores it)
-                snes_iters=max(4, self._nm_eff.snes_iters),
+                snes_iters=max(4, self.numerics.snes_iters),
             )
             fb, _ = make_step_fn(
                 self.ops, nm, atol=self.atol, rtol=self.rtol,
-                unsharded_ok=(self._vstep_flavor != "xla"),
             )
             self._vfallback = self._wrap_members(jax.vmap(fb), 3, 2)
         return self._vfallback

@@ -3,7 +3,7 @@
 Each Rosenbrock-W stage needs (shift*I - J) y = b with J the RHS
 Jacobian.  The reference solves this with a parallel sparse direct LU
 (MUMPS) under PETSc KSP preonly (/root/reference/options84 PETSc
-block).  TPU-native strategy:
+block).  Strategy here:
 
 - ``gmres``: matrix-free restarted GMRES (J action via jax.jvp), right
   thing at scale.  Preconditioned by the *exact* inverse of the stiff
@@ -38,6 +38,16 @@ __all__ = [
 ]
 
 
+# Matmul precision of the preconditioner's basis transforms.  The pc
+# is an approximate inverse: its rounding moves only the Richardson
+# contraction rate (~0.1 per sweep), never the fixed point.  HIGH lets
+# float32 operands run as TF32 on NVIDIA tensor cores (10-bit mantissa,
+# ~1e-3 relative), far inside that margin, at several times the
+# rate of full-f32 (HIGHEST) products; CPU backends compute f32
+# exactly either way.  bf16 and f64 operands ignore it.
+PC_PRECISION = jax.lax.Precision.HIGH
+
+
 class SpectralPreconditioner:
     """M^{-1} for W = shift*I - J, inverting the per-field stiff part.
 
@@ -45,9 +55,9 @@ class SpectralPreconditioner:
     the periodic uniform grid the discrete Laplacian is a symmetric
     circulant per axis, diagonalized EXACTLY by the orthonormal real
     DFT basis (ops/stencil.py real_dft_basis).  The transform is
-    applied as per-axis matmuls with that basis — MXU work on TPU,
-    float64-capable (TPU XLA has no f64 FFT), layout-robust, and
-    sharding-transparent (XLA partitions the einsums).
+    applied as per-axis matmuls with that basis — float64-capable,
+    layout-robust, and sharding-transparent (XLA partitions the
+    einsums).
 
     lam (<= 0) makes What_f = shift + decay_f - diff_f*lam >= shift
     > 0: never singular.
@@ -56,10 +66,10 @@ class SpectralPreconditioner:
     def __init__(self, grid, compute_dtype=None, use_fft=False):
         """compute_dtype: dtype of the transform matmuls.  The
         preconditioner is an approximate inverse, so float32 is the
-        default — it runs the basis matmuls on the TPU MXU at full
-        rate while the Krylov iteration itself stays in the solve
-        dtype; only the Krylov convergence rate is (marginally)
-        affected, never the solution.
+        default — the basis matmuls run at the matrix units' rate
+        while the iteration itself stays in the solve dtype; only the
+        convergence rate is (marginally) affected, never the
+        solution.
 
         bfloat16 runs the TRANSFORM matmuls on bf16 operands AND
         stores the transform intermediates/coefficients in bf16
@@ -68,13 +78,8 @@ class SpectralPreconditioner:
         float32 from the bf16 coefficients — bf16 rounding perturbs
         M^{-1} by ~1e-2 relative, far inside the Richardson
         contraction margin, but bf16 DENOMINATOR arithmetic would be
-        fatal (mode stiffness spans ~6 orders).  The bf16 STORAGE is
-        the point (r4 finding): the apply is HBM-bound on its GEMM
-        intermediates (f32 everywhere measured 117-150 us at 1024^2x3
-        on v5e vs a ~65 us MXU floor; a fused Pallas rewrite measured
-        181 us — see tools/probe_pc_kernel.py), so halving the
-        intermediate bytes attacks the actual bottleneck; sharded, it
-        also halves the all-reduce wire bytes of the pc floor
+        fatal (mode stiffness spans ~6 orders).  Sharded, the bf16
+        storage halves the all-reduce wire bytes of the pc floor
         (tests/test_comm_audit.py).
 
         use_fft: apply the SAME circulant inverse through rfftn/irfftn
@@ -83,8 +88,8 @@ class SpectralPreconditioner:
         solves make the transforms the dominant step cost.  Exact up
         to f32 rounding (the complex DFT diagonalizes every circulant;
         laplacian_symbol is the same discrete-stencil symbol the
-        matmul basis uses).  f32-only (TPU XLA has no f64 FFT) and
-        single-shard only (an FFT along a sharded axis would gather;
+        matmul basis uses).  f32-only (an approximate inverse needs no
+        more) and single-shard only (an FFT along a sharded axis would gather;
         the einsum path shards transparently) — make_step_fn gates it
         accordingly (-pc_fft auto|on|off)."""
         from ..ops.stencil import laplacian_eigendecomp, laplacian_symbol
@@ -108,10 +113,9 @@ class SpectralPreconditioner:
             else self.compute_dtype
         )
         if self.use_fft:
-            # FFT mode is f32-only (TPU XLA has no f64 FFT): clamp the
-            # mode-arithmetic dtype so an f64 pc_dtype cannot promote
-            # the complex64 rfftn coefficients to complex128 (whose
-            # irfftn would need the nonexistent f64 FFT).
+            # FFT mode is f32-only: clamp the mode-arithmetic dtype so
+            # an f64 pc_dtype cannot promote the complex64 rfftn
+            # coefficients to complex128.
             self.compute_dtype = jnp.float32
             self.Qs = None
             self.lam = jnp.asarray(
@@ -147,11 +151,13 @@ class SpectralPreconditioner:
             return jnp.fft.rfftn(v.astype(jnp.float32), axes=axes)
         # Inputs are cast to the transform dtype.  f32/f64 transforms
         # accumulate and return coefficients in compute_dtype; bf16
-        # transforms also STORE intermediates/coefficients in bf16
-        # (the apply is HBM-bound on them — see __init__ docstring);
+        # transforms also STORE intermediates/coefficients in bf16;
         # mode arithmetic upcasts to f32 at its use sites.
         v = v.astype(self.transform_dtype)
-        kw = dict(preferred_element_type=self._interm_dtype)
+        kw = dict(
+            preferred_element_type=self._interm_dtype,
+            precision=PC_PRECISION,
+        )
         if self.dim == 1:
             return jnp.einsum("fi,ik->fk", v, self.Qs[0], **kw)
         if self.dim == 2:
@@ -172,7 +178,10 @@ class SpectralPreconditioner:
         # accumulate/store it in compute_dtype even in bf16 mode (the
         # caller casts to the solve dtype; a bf16 final result would
         # round the preconditioned residual itself, not just M^{-1})
-        kw = dict(preferred_element_type=self.compute_dtype)
+        kw = dict(
+            preferred_element_type=self.compute_dtype,
+            precision=PC_PRECISION,
+        )
         if self.dim == 1:
             return jnp.einsum("fk,ik->fi", c, self.Qs[0], **kw)
         if self.dim == 2:
@@ -294,7 +303,7 @@ class BlockSpectralPreconditioner(SpectralPreconditioner):
 
 def make_sharded_block_apply(precond, ops, mesh):
     """Explicitly sharded block-pc apply with ONE reduced-dtype psum
-    per apply — the multi-chip wire-byte knob (VERDICT r3 #1).
+    per apply — the multi-device wire-byte knob (VERDICT r3 #1).
 
     XLA's transparent partitioning of the einsum apply must all-reduce
     the contraction partials in f32 even under -pc_dtype bf16 (the
@@ -309,8 +318,8 @@ def make_sharded_block_apply(precond, ops, mesh):
     solve runs replicated, and the inverse transform produces only the
     local rows with no further collective.  One psum per apply also
     merges the forward/inverse all-reduce pair of the transparent
-    lowering.  Engaged by make_step_fn when a kernel-compatible mesh
-    is active and pc_dtype is bfloat16 (tests/test_comm_audit.py pins
+    lowering.  Engaged by make_step_fn when the state is sharded over
+    a mesh and pc_dtype is bfloat16 (tests/test_comm_audit.py pins
     the byte halving).
     """
     from jax.sharding import PartitionSpec
@@ -321,8 +330,11 @@ def make_sharded_block_apply(precond, ops, mesh):
     td = precond.transform_dtype
     cd = precond.compute_dtype
     Qs = [q.astype(td) for q in precond.Qs]
-    kwf = dict(preferred_element_type=precond._interm_dtype)
-    kwi = dict(preferred_element_type=cd)
+    kwf = dict(
+        preferred_element_type=precond._interm_dtype,
+        precision=PC_PRECISION,
+    )
+    kwi = dict(preferred_element_type=cd, precision=PC_PRECISION)
     state = PartitionSpec(None, axis, *([None] * (dim - 1)))
 
     def local_apply(v, qx, shift, t, means, rho_diff):

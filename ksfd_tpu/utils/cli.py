@@ -6,7 +6,7 @@ The CLI grammar is compatible with the reference
 - options: ``--name=value``
 - parameters: ``name=value`` (sympy expressions)
 - subsystem blocks: ``--numerics <args...> --`` selects the numerical
-  method (the TPU-native replacement of the reference's ``--petsc``
+  method (the replacement of the reference's ``--petsc``
   block).  ``--petsc <args...> --`` is *also* accepted: the known PETSc
   options that have a meaningful equivalent here (-ts_type,
   -ts_adapt_type, -ts_adapt_clip, -ts_adapt_dt_max/min,
@@ -131,7 +131,7 @@ class NumericsOptions:
     rollback_factor: float = 0.25   # -ts_adapt_scale_solve_failed
     max_snes_failures: int = 100    # consecutive failed-solve limit
     ksp_type: str = "richardson"  # richardson (preconditioned sweeps,
-                                  # TPU default) | gmres (fixed-iter) |
+                                  # default) | gmres (fixed-iter) |
                                   # gmres_scipy (tol-based) |
                                   # dense/direct | banded (1D native)
                                   # | lu (sparse SuperLU, any dim)
@@ -151,8 +151,8 @@ class NumericsOptions:
                                   # <= ksp_iters disables.
     ksp_iters: int = 3            # sweeps / Krylov dim of fixed solvers
                                   # (3 measured equivalent to 4 on all
-                                  # gates: options92/93, 256^2 TPU ramp
-                                  # failure counts — see docs/PERF.md)
+                                  # gates: options92/93, 256^2 ramp
+                                  # failure counts — see the round-2 notes)
                                   # (block pc: 4 sweeps match 16 to
                                   # 1e-11 over chained 1024^2 steps;
                                   # hard states escalate to the GMRES
@@ -177,7 +177,7 @@ class NumericsOptions:
                                   # the aggregated phase's spread
                                   # spectrum — truncation-limited at
                                   # h=64+ where rich16 caps at ~5
-                                  # (docs/PERF.md r5).  The MIDDLE
+                                  # (round-5 measurement).  The MIDDLE
                                   # tier stays Richardson — it never
                                   # amplifies (eigenvalues in (0,2)),
                                   # keeping one robust-by-construction
@@ -205,8 +205,7 @@ class NumericsOptions:
                                  # linearization inverse, default) |
                                  # spectral (per-field diagonal) | none
     precision: str = "float64"   # float64 (parity) | float32 (fast
-                                 # mode; fused Pallas kernels on TPU 2D)
-    use_pallas: bool = True      # allow fused kernels in f32 mode
+                                 # mode: f32 state and stage RHS)
     device_loop: bool = False    # fuse the ADAPTIVE accept/reject loop
                                  # on device (chunks between monitors;
                                  # noise injection bounds each chunk
@@ -219,38 +218,23 @@ class NumericsOptions:
                                  # single device; bfloat16 when the
                                  # build mesh spans >1 device or
                                  # process_count > 1 (VERDICT r4 #2 —
-                                 # the multi-chip wire lever engages
+                                 # the multi-device wire lever engages
                                  # by default where it matters).
                                  # bf16 also stores the transform
-                                 # intermediates/coefficients in bf16:
-                                 # single-chip-neutral (the apply is
-                                 # MXU-utilization-bound, measured
-                                 # 146 vs 145 us at 1024^2) but HALVES
-                                 # the sharded pc's all-reduce wire
-                                 # bytes — the multi-chip comm knob
+                                 # intermediates/coefficients in bf16,
+                                 # which HALVES the sharded pc's
+                                 # all-reduce wire bytes — the
+                                 # multi-device comm knob
                                  # (tests/test_comm_audit.py pins the
                                  # halving).  Explicit -pc_dtype
                                  # f32/bf16/f64 always wins (the
                                  # sharded-vs-single identity tests
                                  # pin f32 on both sides).
-    pc_pallas: bool = False      # fused Pallas block-pc apply
-                                 # (ops/pallas_pc.py).  Measured AT
-                                 # PARITY with the einsum apply on
-                                 # v5e (143 vs 145 us at 1024^2x3 —
-                                 # both MXU-utilization-bound, see
-                                 # tools/probe_pc_kernel.py), so the
-                                 # simpler sharding-transparent
-                                 # einsums stay the default; kept
-                                 # selectable for platforms where
-                                 # Mosaic GEMMs beat XLA's.
     pc_fft: str = "off"          # spectral-pc transforms via f32
                                  # rfftn/irfftn instead of the basis
-                                 # matmuls.  ~100x fewer FLOPs but
-                                 # MEASURED SLOWER on TPU v5e (43 vs
-                                 # 18 ms/step at 1536^2 - XLA:TPU's
-                                 # FFT is far off the MXU einsum
-                                 # rate), so default off; kept for
-                                 # FFT-strong platforms.  auto = on
+                                 # matmuls (~100x fewer FLOPs; its
+                                 # speed on the GPU is not measured
+                                 # yet, so default off).  auto = on
                                  # for single-device processes only
                                  # (an FFT along a sharded axis would
                                  # gather); -pc_fft 1/0 forces
@@ -261,14 +245,16 @@ class NumericsOptions:
                                   # 16 f64 sweeps: 1.9e-7 at 1024^2
                                   # (same as f64 4-sweep truncation);
                                   # -ksp_sweep_dtype f64 opts out
-    stage_delta: bool = True     # evaluate stage RHS as f(u0) + fused
-                                 # increment kernel (f32, accurate to
-                                 # ~1e-6 of the increment; ops/delta.py)
-                                 # instead of a full f64 eval per
-                                 # stage.  Active only on the mixed
-                                 # path (sweep_dtype f32, Pallas
-                                 # available, no TD coefficients);
-                                 # -stage_delta 0 opts out
+    stage_delta: bool = False    # evaluate stage RHS as f(u0) +
+                                 # PDEOperators.rhs_delta (f32,
+                                 # accurate to ~1e-6 of the increment;
+                                 # ops/delta.py) instead of a full f64
+                                 # eval per stage, and chain f0 the
+                                 # same way.  Active only on the mixed
+                                 # path (sweep_dtype f32,
+                                 # ops.stage_delta_ok()).  Off: on the
+                                 # H100 the f64 evaluations are faster
+                                 # (PERF.md); -stage_delta 1 opts in
     snes_iters: int = 2          # modified-Newton iterations per DIRK
                                  # stage (-snes_type ksponly sets 1,
                                  # matching the reference's PETSc runs)
@@ -470,14 +456,11 @@ def decode_numerics(tokens, petsc_tokens=()):
                 pending_notes.append("{t} {v}".format(t=tok, v=val))
             else:
                 # mumps etc.: our spectral preconditioner is the
-                # TPU-native stand-in for the direct factorization.
+                # stand-in for the direct factorization.
                 opts.unrecognized.append("{t} {v}".format(t=tok, v=val))
         elif key == "device_loop":
             val, i = take_value(i)
             opts.device_loop = str(val) not in ("0", "false", "False")
-        elif key == "use_pallas":
-            val, i = take_value(i)
-            opts.use_pallas = str(val) not in ("0", "false", "False")
         elif key == "stage_delta":
             val, i = take_value(i)
             opts.stage_delta = str(val) not in ("0", "false", "False")
@@ -501,9 +484,6 @@ def decode_numerics(tokens, petsc_tokens=()):
                 "float32": "float32", "float64": "float64",
                 "auto": "auto",
             }.get(val, opts.pc_dtype)
-        elif key == "pc_pallas":
-            val, i = take_value(i)
-            opts.pc_pallas = str(val) not in ("0", "false", "False")
         elif key == "pc_fft":
             val, i = take_value(i)
             opts.pc_fft = {

@@ -1,10 +1,10 @@
 """Symbolic utilities: safe sympification and sympy->JAX compilation.
 
-This module is the TPU-native replacement for the reference's runtime C
+This module is the replacement for the reference's runtime C
 code generator (KSFD/ksfdufunc.py:92-378): instead of emitting C99 and
 dlopen'ing a numpy ufunc, we compile sympy expressions to JAX-traceable
 callables with ``sympy.lambdify(modules='jax')`` and let XLA fuse and
-compile them to TPU machine code.  There is no 32-argument ufunc limit,
+compile them to device machine code.  There is no 32-argument ufunc limit,
 so none of the reference's ufunc split/merge machinery
 (KSFD/ksfdsym.py:1067-1156) is needed.
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Solve the Keller-Segel PDE system on TPU (or CPU) with ksfd_tpu.
+"""Solve the Keller-Segel PDE system with ksfd_tpu (GPU or CPU).
 
-The TPU-native counterpart of the reference driver
+The counterpart of the reference driver
 (/root/reference/ksfdsolver2.py:1-784).  The command-line grammar is
 the same three languages (ksfdsolver2.py:33-52):
 
@@ -44,7 +44,7 @@ logMAIN = logger("MAIN")
 
 
 def parse_commandline(args=None):
-    parser = Parser(description="Solve Keller-Segel PDEs (TPU-native)")
+    parser = Parser(description="Solve Keller-Segel PDEs")
     parser.add_argument("--cappotential", choices=["tophat", "witch"],
                         default="tophat",
                         help="potential function for capping rho")
@@ -78,7 +78,7 @@ def parse_commandline(args=None):
                         help="not implemented: only periodic BCs exist")
     parser.add_argument("--onestep", action="store_true",
                         help="exit after one step (pre-compile check)")
-    parser.add_argument("--solver", default="tpu", help="accepted for compat")
+    parser.add_argument("--solver", help="accepted for compat")
     parser.add_argument("--seed", type=int, default=793817931,
                         help="random number generator seed")
     parser.add_argument("--source", type=str, action="append", default=[],
@@ -147,6 +147,23 @@ def decode_sources(sargs, ps, grid):
         else SpatialExpression(ps, grid, s)
         for s in sources
     ]
+
+
+def build(clargs):
+    """(ps, grid, numerics, sources) of a parsed command line; seeds
+    the initial-condition generator."""
+    ps = SolutionParameters(clargs)
+    Generator(seed=clargs.seed)
+    numerics = decode_numerics(clargs.numerics, petsc_tokens=clargs.petsc)
+    grid = Grid(
+        dim=ps.dim,
+        dof=ps.nligands + 1,
+        width=ps.width, height=ps.height, depth=ps.depth,
+        nx=ps.nwidth, ny=ps.nheight, nz=ps.ndepth,
+        order=ps.degree,
+    )
+    sources = decode_sources(clargs.source, ps, grid)
+    return ps, grid, numerics, sources
 
 
 def run_ensemble(clargs, ps, grid, ops, numerics):
@@ -296,35 +313,28 @@ def run_ensemble(clargs, ps, grid, ops, numerics):
             % (nloc, slab or ",", int(np.sum(out.diverged)),
                int(np.sum(out.snes_failures)))
         )
-    return status
+    return status, es
 
 
-def main(*args):
-    args = list(args) if args else sys.argv
+def run(argv):
+    """Run the command line ``argv`` (without the program name).
+
+    Returns (exit status, the Solver or EnsembleSolver that ran, or
+    None for --showparams)."""
     # Multi-process (multi-host) runs — the mpiexec analog — must join
     # the jax.distributed runtime before any backend use.
     from ksfd_tpu.parallel import maybe_init_distributed
 
     maybe_init_distributed()
-    clargs = parse_commandline(args[1:])
+    clargs = parse_commandline(argv)
     catch_signals()
     if clargs.noperiodic:
         raise KSFDException("--noperiodic not implemented: BCs are periodic")
-    ps = SolutionParameters(clargs)
-    Generator(seed=clargs.seed)
+    ps, grid, numerics, sources = build(clargs)
     if clargs.showparams:
         for n, p, d, h in ps.params0.params():
             print("{n}={val} -- {h}".format(n=n, val=p(), h=h))
-        return 0
-    numerics = decode_numerics(clargs.numerics, petsc_tokens=clargs.petsc)
-    grid = Grid(
-        dim=ps.dim,
-        dof=ps.nligands + 1,
-        width=ps.width, height=ps.height, depth=ps.depth,
-        nx=ps.nwidth, ny=ps.nheight, nz=ps.ndepth,
-        order=ps.degree,
-    )
-    sources = decode_sources(clargs.source, ps, grid)
+        return 0, None
     if int(getattr(clargs, "ensemble", 0) or 0) >= 1:
         if clargs.with_g:
             raise KSFDException("--ensemble does not support --with_g")
@@ -472,7 +482,12 @@ def main(*args):
             closer()
         tseries.close()
     print("solve failures =", solver.snes_failures)
-    return status
+    return status, solver
+
+
+def main(*args):
+    args = list(args) if args else sys.argv
+    return run(args[1:])[0]
 
 
 if __name__ == "__main__":

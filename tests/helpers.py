@@ -17,7 +17,7 @@ def make_clargs(params=(), source=(), cappotential="tophat", seed=793817931, **k
         showparams=False,
         noperiodic=False,
         onestep=False,
-        solver="tpu",
+        solver=None,
         seed=seed,
         source=list(source),
         params=list(params),

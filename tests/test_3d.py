@@ -131,99 +131,6 @@ def test_3d_sharded_mixed_sweeps_close():
 
 
 # ---------------------------------------------------------------------
-# 3D fused Pallas kernels (interpret mode; see ops/pallas_stencil3d.py)
-# ---------------------------------------------------------------------
-
-def _rough3d(grid, scale=1000.0):
-    rng = np.random.default_rng(0)
-    return np.stack([
-        6000 + 3 * scale * np.abs(rng.standard_normal(grid.Sshape)),
-        6000 + scale * np.abs(rng.standard_normal(grid.Sshape)),
-    ])
-
-
-def test_pallas3d_rhs_jvp_delta(monkeypatch):
-    from ksfd_tpu.ops.pallas_stencil import (
-        make_pallas_kernels,
-        pallas_available,
-    )
-
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
-    ps, grid, ops = _problem()
-    assert pallas_available(grid, ops)
-    k = make_pallas_kernels(ops, interpret=True)
-    u = _rough3d(grid)
-    u0 = ops.groom(jnp.asarray(u))
-    rng = np.random.default_rng(1)
-    v = jnp.asarray(rng.standard_normal(grid.Vshape))
-
-    ref = np.asarray(ops.rhs(u0, 0.5))
-    out = np.asarray(k.rhs(u0.astype(jnp.float32), 0.5))
-    assert np.abs(out - ref).max() / np.abs(ref).max() < 5e-4
-
-    jref = np.asarray(ops.jacobian_action(u0, 0.5, v))
-    jout = np.asarray(k.jvp(u0, v, 0.5))
-    assert np.abs(jout - jref).max() / np.abs(jref).max() < 5e-4
-
-    d = jnp.asarray(50.0 * rng.standard_normal(grid.Vshape))
-    ug = ops.groom(u0 + d)
-    dref = np.asarray(ops.rhs(ug, 0.5) - ops.rhs(u0, 0.5))
-    dout = np.asarray(k.delta(u0, ug - u0, ug, 0.5))
-    assert np.abs(dout - dref).max() / np.abs(dref).max() < 3e-6
-
-
-def test_pallas3d_resid_matches_composition(monkeypatch):
-    from ksfd_tpu.ops.pallas_stencil import make_pallas_kernels
-
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
-    ps, grid, ops = _problem()
-    k = make_pallas_kernels(ops, interpret=True)
-    rng = np.random.default_rng(5)
-    u = jnp.asarray(_rough3d(grid), dtype=jnp.float32)
-    v = jnp.asarray(rng.standard_normal(grid.Vshape), dtype=jnp.float32)
-    b = jnp.asarray(rng.standard_normal(grid.Vshape), dtype=jnp.float32)
-    shift = 7.5
-    ref = np.asarray(b - (shift * v - k.jvp(u, v, 0.5)))
-    out = np.asarray(k.resid(u, v, b, 0.5, shift))
-    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-5
-
-
-def test_pallas3d_periodic_wrap(monkeypatch):
-    """x/y pads and z rolls must all reproduce periodic wraparound."""
-    from ksfd_tpu.ops.pallas_stencil import make_pallas_kernels
-
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
-    ps, grid, ops = _problem()
-    k = make_pallas_kernels(ops, interpret=True)
-    u32 = jnp.asarray(_rough3d(grid), dtype=jnp.float32)
-    out = np.asarray(k.rhs(u32, 0.0))
-    for axis in (1, 2, 3):
-        shifted = jnp.roll(u32, 8, axis=axis)
-        out_s = np.asarray(k.rhs(shifted, 0.0))
-        np.testing.assert_allclose(
-            out_s, np.roll(out, 8, axis=axis),
-            rtol=1e-4, atol=1e-4 * np.abs(out).max(),
-            err_msg="axis %d" % axis,
-        )
-
-
-def test_pallas3d_sharded_matches_single(monkeypatch):
-    from ksfd_tpu.ops.pallas_stencil import make_pallas_kernels
-    from ksfd_tpu.parallel import distribute, grid_mesh
-
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
-    ps, grid, ops = _problem()
-    mesh = grid_mesh(grid, shape=(2, 1, 1))
-    k1 = make_pallas_kernels(ops, interpret=True)
-    ks = make_pallas_kernels(ops, interpret=True, mesh=mesh)
-    u = jnp.asarray(_rough3d(grid))
-    u_sh, _ = distribute(u, grid, mesh=mesh)
-    out1 = np.asarray(k1.rhs(u.astype(jnp.float32), 0.5))
-    outs = np.asarray(ks.rhs(u_sh, 0.5))
-    np.testing.assert_allclose(
-        outs, out1, rtol=1e-5, atol=1e-5 * np.abs(out1).max()
-    )
-
 
 def test_3d_fft_pc_matches_matmul_pc():
     """-pc_fft in 3D: rfftn over all three axes applies the same
@@ -243,162 +150,3 @@ def test_3d_fft_pc_matches_matmul_pc():
     np.testing.assert_allclose(af, am, rtol=0, atol=5e-5 * np.abs(am).max())
 
 
-def test_pallas3d_vmap_batching(monkeypatch):
-    """jax.vmap over the 3D kernel wrappers engages the member-batched
-    grid and matches per-member calls (cf. the 2D batching test)."""
-    from ksfd_tpu.ops.pallas_stencil import make_pallas_kernels
-
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
-    ps, grid, ops = _problem()
-    k = make_pallas_kernels(ops, interpret=True)
-    rng = np.random.default_rng(7)
-    U = np.stack([_rough3d(grid) * (1 + 0.01 * i) for i in range(2)])
-    V = rng.standard_normal(U.shape)
-    ts = jnp.asarray([0.25, 0.75])
-    Uj = jax.vmap(ops.groom)(jnp.asarray(U))
-    Vj = jnp.asarray(V)
-
-    out_v = np.asarray(jax.vmap(k.jvp)(Uj, Vj, ts))
-    out_s = np.stack([
-        np.asarray(k.jvp(Uj[i], Vj[i], ts[i])) for i in range(2)
-    ])
-    np.testing.assert_allclose(out_v, out_s, rtol=1e-6, atol=1e-6)
-
-    if k.delta is not None:
-        D = 10.0 * Vj
-        U1 = jax.vmap(ops.groom)(Uj + D)
-        out_v = np.asarray(jax.vmap(k.delta)(Uj, U1 - Uj, U1, ts))
-        out_s = np.stack([
-            np.asarray(k.delta(Uj[i], (U1 - Uj)[i], U1[i], ts[i]))
-            for i in range(2)
-        ])
-        np.testing.assert_allclose(out_v, out_s, rtol=1e-6, atol=1e-6)
-
-
-def test_tile_rows3d_alignment_contract():
-    """The 3D tile chooser only returns tiles make_slab_pipeline
-    accepts: multiples of 8 dividing nx_loc (ADVICE r3: plain halving
-    produced tx=12/10/12 on nx_loc=24/40/48 at large L and crashed
-    the builder), and 0 when no tile fits the VMEM budget."""
-    from ksfd_tpu.ops.pallas_stencil3d import (
-        _VMEM_BUDGET, _tile_rows3d, _vmem_estimate,
-    )
-
-    for nx_loc in (8, 16, 24, 40, 48, 56, 64, 72, 128):
-        for L in (2048, 16384, 20480):
-            tx = _tile_rows3d(nx_loc, 3, L, halo=8)
-            if tx:
-                assert tx % 8 == 0 and nx_loc % tx == 0
-                assert _vmem_estimate(3, tx, L, 3, 8) <= _VMEM_BUDGET
-            else:
-                # infeasible: even the smallest aligned tile blows
-                # the budget (or nx_loc itself is misaligned)
-                assert (
-                    nx_loc % 8 != 0
-                    or _vmem_estimate(3, 8, L, 3, 8) > _VMEM_BUDGET
-                )
-    # misaligned per-shard extents are infeasible by contract
-    assert _tile_rows3d(20, 3, 2048, halo=8) == 0
-
-
-def test_pallas3d_available_vmem_infeasible_routes_to_xla(monkeypatch):
-    """A grid whose folded cross-section fits no (x-tile, lane-tile)
-    plan must report unavailable (XLA fallback), not crash the kernel
-    builder; big-but-alignable cross-sections are now served by lane
-    tiling (VERDICT r3 #3)."""
-    from ksfd_tpu.ops.pallas_stencil3d import (
-        _tile_plan3d, pallas3d_available,
-    )
-
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
-
-    ps = SolutionParameters(make_clargs(params=PARAMS_3D))
-    # 24 x 128 x 256 (L = 32768): beyond the full-residency budget,
-    # but lane-tileable (sw*nz = 512 is 128-aligned) — available
-    grid = Grid(dim=3, width=1, height=1, depth=1,
-                nx=24, ny=128, nz=256, dof=2, order=3)
-    ops = PDEOperators(ps, grid)
-    assert pallas3d_available(grid, ops)
-    tx, ny_t, halo = _tile_plan3d(24, 2, 128, 256, 2)
-    assert ny_t < 128 and tx % 8 == 0 and 24 % tx == 0
-
-    # 24 x 512 x 48 (L = 24576): full residency is over budget AND
-    # the lane halo sw*nz = 96 is not 128-aligned — unavailable
-    grid2 = Grid(dim=3, width=1, height=1, depth=1,
-                 nx=24, ny=512, nz=48, dof=2, order=3)
-    ops2 = PDEOperators(ps, grid2)
-    assert not pallas3d_available(grid2, ops2)
-
-
-def test_pallas3d_lane_tiled_matches_xla(monkeypatch):
-    """Lane-tiled 3D kernels (VERDICT r3 #3: cross-sections too large
-    for full-L residency) must match the XLA operators like the
-    untiled ones, including periodic wraparound in y through the
-    lane-halo DMA pieces."""
-    from ksfd_tpu.ops import PDEOperators
-    from ksfd_tpu.ops.pallas_stencil import (
-        make_pallas_kernels, pallas_available,
-    )
-    from ksfd_tpu.ops.pallas_stencil3d import (
-        _VMEM_BUDGET, make_pallas_kernels_3d,
-    )
-
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
-    # force lane tiling on a small test grid by shrinking the VMEM
-    # budget the planner fits into (a real 256^3 is too slow for
-    # interpret mode)
-    import ksfd_tpu.ops.pallas_stencil3d as p3d
-
-    # lane tiling needs sw*nz % 128 == 0 (nz=64 at sw=2) and pays off
-    # only when the chunk+halo lanes undercut the full folded extent;
-    # a 2 MB budget makes full-L (L=1024 lanes) infeasible while the
-    # ny_t=2 chunk (128 + 2*128 lanes) fits
-    monkeypatch.setattr(p3d, "_VMEM_BUDGET", 2_000_000)
-    ps = SolutionParameters(make_clargs(params=PARAMS_3D))
-    grid = Grid(dim=3, width=1, height=1, depth=1,
-                nx=16, ny=16, nz=64, dof=2, order=3)
-    ops = PDEOperators(ps, grid)
-    assert pallas_available(grid, ops)
-    k = make_pallas_kernels_3d(ops, interpret=True)
-    assert k.tile_plan["nlt"] > 1, k.tile_plan  # lane tiling engaged
-    assert k.tile_plan["hl"] % 128 == 0
-
-    rng = np.random.default_rng(2)
-    x = np.arange(grid.nx) / grid.nx
-    X, Y, Z = np.meshgrid(
-        x,
-        np.arange(grid.ny) / float(grid.ny),
-        np.arange(grid.nz) / float(grid.nz),
-        indexing="ij",
-    )
-    u = np.stack([
-        9000.0 + 800 * np.sin(2 * np.pi * (X + 2 * Y - Z))
-        + 50 * rng.standard_normal(X.shape),
-        9000.0 + 500 * np.cos(2 * np.pi * (X - Y)),
-    ])
-    u0 = ops.groom(jnp.asarray(u))
-    v = jnp.asarray(rng.standard_normal(grid.Vshape))
-
-    ref = np.asarray(ops.rhs(u0, 0.5))
-    out = np.asarray(k.rhs(u0.astype(jnp.float32), 0.5))
-    assert np.abs(out - ref).max() / np.abs(ref).max() < 5e-4
-
-    jref = np.asarray(ops.jacobian_action(u0, 0.5, v))
-    jout = np.asarray(k.jvp(u0, v, 0.5))
-    assert np.abs(jout - jref).max() / np.abs(jref).max() < 5e-4
-
-    d = jnp.asarray(50.0 * rng.standard_normal(grid.Vshape))
-    ug = ops.groom(u0 + d)
-    dref = np.asarray(ops.rhs(ug, 0.5) - ops.rhs(u0, 0.5))
-    dout = np.asarray(k.delta(u0, ug - u0, ug, 0.5))
-    assert np.abs(dout - dref).max() / np.abs(dref).max() < 3e-6
-
-    # roll-equivariance along y exercises the lane-halo wrap pieces
-    u32 = u0.astype(jnp.float32)
-    base = np.asarray(k.rhs(u32, 0.0))
-    shifted = jnp.roll(u32, 3, axis=2)
-    out_s = np.asarray(k.rhs(shifted, 0.0))
-    np.testing.assert_allclose(
-        out_s, np.roll(base, 3, axis=2),
-        rtol=1e-4, atol=1e-4 * np.abs(base).max(),
-    )

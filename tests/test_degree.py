@@ -7,9 +7,8 @@ gate pinned degree=3, so wider/narrower stencils had availability
 coverage but no NUMERICS coverage.  These tests make degree
 load-bearing: spectral-pc eigenstructure at sw=1/3, 6th-order spatial
 convergence at degree=5, a full adaptive solve at degree=2, and
-pc/XLA-path solver agreement on a 2D sw=3 grid (where the fused
-Pallas kernels decline and the wide-halo XLA fallback carries the
-step).
+block-pc/GMRES solver agreement on a 2D sw=3 grid (wide-stencil
+stage-delta evaluations).
 """
 
 import numpy as np
@@ -97,13 +96,12 @@ def _problem_2d_degree5(nx=32):
 def test_degree5_2d_block_pc_agreement():
     """2D sw=3: the block-pc Richardson stage solver agrees with the
     solver-independent f64 GMRES step — i.e. the pc's per-mode arrow
-    inverse has the right eigenstructure for WIDE stencils, and the
-    wide-halo XLA fallback (Pallas declines sw=3) carries the step."""
-    from ksfd_tpu.ops.pallas_stencil import pallas_available
+    inverse has the right eigenstructure for WIDE stencils, with
+    stage-delta evaluations on the wide stencil."""
+    from ksfd_tpu.solvers.solver import BUILD_INFO
 
     ps, grid, ops = _problem_2d_degree5()
     assert grid.stencil_width == 3
-    assert not pallas_available(grid, ops)
     rng = np.random.default_rng(7)
     u = jnp.asarray(np.stack([
         9000.0 + 50.0 * rng.standard_normal(grid.Sshape),
@@ -111,8 +109,10 @@ def test_degree5_2d_block_pc_agreement():
         9000.0 + 10.0 * rng.standard_normal(grid.Sshape),
     ]))
     s_rich, _ = make_step_fn(
-        ops, NumericsOptions(ksp_iters=16), atol=0.01, rtol=1e-6
+        ops, NumericsOptions(ksp_iters=16, stage_delta=True), atol=0.01,
+        rtol=1e-6,
     )
+    assert BUILD_INFO["delta"]
     s_ref, _ = make_step_fn(
         ops,
         NumericsOptions(ksp_type="gmres_scipy", ksp_rtol=1e-12,

@@ -197,8 +197,8 @@ def test_ensemble_member_offset_slabs():
     assert d > 1e-8
 
 
-def _pallas_2d_problem():
-    """A Pallas-capable 2D problem + a rough 2-member batch."""
+def _rough_2d_problem():
+    """A 2D stage-delta problem + a rough 2-member batch."""
     from helpers import make_clargs, OPTIONS92_PARAMS
     from ksfd_tpu import Grid, SolutionParameters
     from ksfd_tpu.ops import PDEOperators
@@ -222,27 +222,26 @@ def _pallas_2d_problem():
     return ops, grid, np.stack([base, base * 1.01])
 
 
-def test_ensemble_uses_batched_pallas_step(monkeypatch):
-    """On a Pallas-capable problem the unsharded ensemble keeps
-    use_pallas on (the custom_batching rules batch the kernels) and
-    the vmapped step matches per-member scalar stepping."""
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
+def test_ensemble_uses_batched_delta_step():
+    """The unsharded ensemble vmaps the default step with stage-delta
+    engaged, and the vmapped step matches per-member scalar
+    stepping."""
     from ksfd_tpu.solvers import make_step_fn
+    from ksfd_tpu.solvers.solver import BUILD_INFO
 
-    ops, grid, U0 = _pallas_2d_problem()
+    ops, grid, U0 = _rough_2d_problem()
 
-    es = EnsembleSolver(ops, NumericsOptions(adapt_type="none"),
+    nm = NumericsOptions(adapt_type="none", stage_delta=True)
+    es = EnsembleSolver(ops, nm,
                         t0=0.0, dt=1e-3, tmax=1e9, maxsteps=2,
                         rtol=1e-6, atol=0.01)
     out = es.solve(jnp.asarray(U0))
-    # the step must have been built WITH pallas (flavor auto)
-    assert es._vstep_flavor == "auto"
-    assert es._nm_eff.use_pallas
+    assert es._vstep_flavor == "plain"
     assert (out.k == 2).all()
 
-    # per-member scalar oracle on the same (pallas interpret) path
-    step, _ = make_step_fn(ops, NumericsOptions(adapt_type="none"),
-                           atol=0.01, rtol=1e-6)
+    # per-member scalar oracle on the same (stage-delta) path
+    step, _ = make_step_fn(ops, nm, atol=0.01, rtol=1e-6)
+    assert BUILD_INFO["delta"] and BUILD_INFO["mixed32"]
     for i in range(2):
         u, t = jnp.asarray(U0[i]), 0.0
         u = ops.groom(u)
@@ -256,37 +255,36 @@ def test_ensemble_uses_batched_pallas_step(monkeypatch):
         assert np.abs(got - ref).max() / scale < 1e-5
 
 
-def test_ensemble_sharded_members_keep_pallas(monkeypatch):
-    """Members sharded over the device mesh run the SAME fused batched
-    Pallas step inside shard_map over the member axis — one
-    collective-free program per device — instead of dropping to the
-    XLA step (VERDICT r2 weak #7).  Oracle: the unsharded run."""
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
-    ops, grid, U2 = _pallas_2d_problem()
+def test_ensemble_sharded_members_keep_delta():
+    """Members sharded over the device mesh run the SAME batched
+    stage-delta step inside shard_map over the member axis — one
+    collective-free program per device (VERDICT r2 weak #7).  Oracle:
+    the unsharded run."""
+    ops, grid, U2 = _rough_2d_problem()
     n = len(jax.devices())
     U0 = np.concatenate(
         [U2[:1] * (1.0 + 1e-3 * i) for i in range(n)], axis=0
     )
     kw = dict(t0=0.0, dt=1e-3, tmax=1e9, maxsteps=3, rtol=1e-6,
               atol=0.01)
-    es_ref = EnsembleSolver(ops, NumericsOptions(), **kw)
+    nm = NumericsOptions(stage_delta=True)
+    es_ref = EnsembleSolver(ops, nm, **kw)
     ref = es_ref.solve(jnp.asarray(U0))
-    assert es_ref._vstep_flavor == "auto"
+    assert es_ref._vstep_flavor == "plain"
 
     Us = shard_members(jnp.asarray(U0))
-    es = EnsembleSolver(ops, NumericsOptions(), **kw)
+    es = EnsembleSolver(ops, nm, **kw)
     out = es.solve(Us)
-    # fused kernels stayed on, under shard_map over the member mesh
+    # the same step, under shard_map over the member mesh
     assert es._vstep_flavor.startswith("smap")
-    assert es._nm_eff.use_pallas
     assert es._member_mesh is not None
     assert (out.k == ref.k).all()
     # NOT bit-exact vs the unsharded run: the shard_map body compiles
-    # the batched f32 kernels at a different batch shape, and f32
-    # reassociation across executables moves the mixed-precision
-    # increments at their last bit (~1e-7 of the delta -> ~4e-8 of
-    # the state here).  1e-6 of state scale is the same envelope the
-    # sharded-vs-single step tests use (test_pallas.py).
+    # the batched f32 sweeps and increments at a different batch
+    # shape, and f32 reassociation across executables moves the
+    # mixed-precision increments at their last bit.  1e-6 of state
+    # scale is the envelope the sharded-vs-single step tests use
+    # (test_delta.py).
     scale = np.abs(np.asarray(ref.u)).max()
     assert np.abs(np.asarray(out.u) - np.asarray(ref.u)).max() / scale \
         < 1e-6
@@ -301,14 +299,13 @@ def test_ensemble_sharded_members_keep_pallas(monkeypatch):
         assert coll not in hlo, coll
 
 
-def test_ensemble_sharded_chunk_and_block_modes(monkeypatch):
+def test_ensemble_sharded_chunk_and_block_modes():
     """The -device_loop adaptive chunk and the fixed-dt block mode
     also run sharded members through shard_map (same results as the
     unsharded runs)."""
     import dataclasses
 
-    monkeypatch.setenv("KSFD_PALLAS_INTERPRET", "1")
-    ops, grid, U2 = _pallas_2d_problem()
+    ops, grid, U2 = _rough_2d_problem()
     n = len(jax.devices())
     U0 = np.concatenate(
         [U2[:1] * (1.0 + 1e-3 * i) for i in range(n)], axis=0
@@ -322,8 +319,8 @@ def test_ensemble_sharded_chunk_and_block_modes(monkeypatch):
     out = es.solve(shard_members(jnp.asarray(U0)))
     assert es._vchunk is not None and es._vstep_flavor.startswith("smap")
     assert (out.k == ref.k).all()
-    # f32-kernel envelope across batch-shape recompilations (see
-    # test_ensemble_sharded_members_keep_pallas)
+    # f32 envelope across batch-shape recompilations (see
+    # test_ensemble_sharded_members_keep_delta)
     scale = np.abs(np.asarray(ref.u)).max()
     assert np.abs(np.asarray(out.u) - np.asarray(ref.u)).max() / scale \
         < 1e-6

@@ -209,8 +209,8 @@ def test_gmres_breakdown_finite_and_judged():
 
 
 def test_bf16_pc_transforms_step_agrees(manufactured32):
-    """-pc_dtype bf16: transform matmuls in bfloat16 (4x MXU rate for
-    the many-sweep large-grid regime) with mode-space arithmetic kept
+    """-pc_dtype bf16: transform matmuls in bfloat16 (the tensor-core
+    rate for the many-sweep large-grid regime) with mode-space arithmetic kept
     f32 must still contract — the step lands within the dense step's
     neighborhood and the embedded error agrees to leading order."""
     from ksfd_tpu import decode_numerics
@@ -262,8 +262,8 @@ def test_fft_pc_matches_matmul_pc_operator():
     lf = np.asarray(bf.apply_linearized(v, 0.5, 0.0, means, rho_diff=1e-4))
     np.testing.assert_allclose(lf, lm, rtol=0, atol=5e-5 * np.abs(lm).max())
 
-    # FFT mode must clamp an f64 pc_dtype to f32 (complex128 would
-    # need the f64 FFT that TPU XLA lacks)
+    # FFT mode must clamp an f64 pc_dtype to f32 (the approximate
+    # inverse needs no complex128 transforms)
     b64 = BlockSpectralPreconditioner(
         grid, ops, compute_dtype=jnp.float64, use_fft=True
     )

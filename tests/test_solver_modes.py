@@ -134,7 +134,7 @@ def test_chunk_shrinks_h_on_device(prob):
     handled ON DEVICE (shrink h, keep stepping) — not by exiting to the
     host fallback.  Regression for the hexagons2d rough phase, where
     exit-on-first-reject parked the run permanently on the ~1000x
-    slower host robust path (docs/HANDOFF_r2.md)."""
+    slower host robust path (round-2 measurement)."""
     from ksfd_tpu.solvers.solver import make_adaptive_chunk_fn
 
     ps, grid, ops = prob

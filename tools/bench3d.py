@@ -1,25 +1,22 @@
 #!/usr/bin/env python3
-"""Big-3D benchmark + kernel validation for the fused 3D path.
+"""Big-3D benchmark of the implicit step on a GPU.
 
-The 3D analog of bench.py (same slope-timing discipline, CLAUDE.md
-"Environment gotchas"): the options84-class physics (rho + attractant
-+ repellent, 3 dofs) on an nx^3 grid, f64 mixed-precision ROS34PW2
-steps chained inside one device execution.  Reference capability:
-dim-3 grids are first-class (KSFD/ksfdgrid.py:60-148).
+The 3D analog of bench.py (same slope timing): the options84-class
+physics (rho + attractant + repellent, 3 dofs) on an nx^3 grid, f64
+mixed-precision ROS34PW2 steps chained inside one device execution.
+Reference capability: dim-3 grids are first-class
+(KSFD/ksfdgrid.py:60-148).
 
---check additionally compares the fused 3D kernels (rhs/jvp/delta)
-against the f64 XLA oracle on a ROUGH state (a near-uniform state
-makes raw f32 comparisons meaningless — docs/HANDOFF_r2.md) before
-timing.
+--check first compares PDEOperators.rhs_delta against the f64
+difference of two RHS evaluations on a ROUGH state.
 
-Prints ONE JSON line like bench.py.
+Exits non-zero without a GPU.  Prints ONE JSON line like bench.py.
 """
 
 import argparse
 import json
 import os
 import sys
-import time
 
 BASELINE_DOF_UPDATES_PER_SEC = 7.08e6 * 1e4 / 86400.0  # bench.py
 
@@ -71,43 +68,19 @@ def rough_state(grid, scale=1000.0):
     ])
 
 
-def check_kernels(ops, grid, verbose=False):
-    """Max rel deviation of each fused 3D kernel from the f64 oracle
-    on a rough state; returns a dict of rel errors."""
+def check_delta(ops, grid):
+    """Max deviation of rhs_delta from the f64 increment on a rough
+    state, relative to the increment."""
     import numpy as np
     import jax
     import jax.numpy as jnp
 
-    from ksfd_tpu.ops.pallas_stencil3d import make_pallas_kernels_3d
-
-    kern = make_pallas_kernels_3d(ops)
-    u = jnp.asarray(rough_state(grid))
-    rng = np.random.default_rng(1)
-    v = jnp.asarray(rng.standard_normal(grid.Vshape))
-    t = 0.5
-    out = {}
-    ref = np.asarray(ops.rhs(u, t))
-    got = np.asarray(kern.rhs(u.astype(jnp.float32), t))
-    out["rhs"] = float(np.abs(got - ref).max() / np.abs(ref).max())
-    _, jvp64 = jax.linearize(lambda uu: ops.rhs(uu, t), u)
-    refj = np.asarray(jvp64(v))
-    gotj = np.asarray(
-        kern.jvp(u.astype(jnp.float32), v.astype(jnp.float32), t)
-    )
-    out["jvp"] = float(np.abs(gotj - refj).max() / np.abs(refj).max())
-    if kern.delta is not None:
-        d = 1e-3 * v
-        u1 = ops.groom(u + d)
-        refd = np.asarray(ops.rhs(u1, t) - ops.rhs(ops.groom(u), t))
-        gotd = np.asarray(kern.delta(ops.groom(u), u1 - ops.groom(u),
-                                     u1, t))
-        out["delta"] = float(
-            np.abs(gotd - refd).max() / np.abs(refd).max()
-        )
-    if verbose:
-        print("3D kernel rel deviations vs f64 oracle:", out,
-              file=sys.stderr)
-    return out
+    u = ops.groom(jnp.asarray(rough_state(grid)))
+    v = jnp.asarray(np.random.default_rng(1).standard_normal(grid.Vshape))
+    u1 = ops.groom(u + 100.0 * v)
+    ref = ops.rhs(u1, 0.5) - ops.rhs(u, 0.5)
+    got = jax.jit(ops.rhs_delta)(u, u1 - u, u1, 0.5)
+    return float(jnp.max(jnp.abs(got - ref)) / jnp.max(jnp.abs(ref)))
 
 
 def main(argv=None):
@@ -119,27 +92,27 @@ def main(argv=None):
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--dt", type=float, default=1.0)
     parser.add_argument("--check", action="store_true",
-                        help="validate the fused kernels vs the f64 "
-                             "oracle on a rough state first")
-    parser.add_argument("--no-pallas", action="store_true",
-                        help="time the XLA path instead (A/B)")
-    parser.add_argument("--verbose", action="store_true")
+                        help="validate rhs_delta vs the f64 oracle on a "
+                             "rough state first")
     args = parser.parse_args(argv)
 
     import jax
     import jax.numpy as jnp
     import numpy as np
 
+    import bench
     from ksfd_tpu import NumericsOptions
     from ksfd_tpu.solvers import make_multistep_fn
 
+    if jax.devices()[0].platform != "gpu":
+        print("bench3d: no GPU", file=sys.stderr)
+        return 2
     ps, grid, ops = make_problem3d(args.nx, args.ny, args.nz)
-    platform = jax.devices()[0].platform
+    record = bench.device_record()
     if args.check:
-        check_kernels(ops, grid, verbose=True)
-    numerics = NumericsOptions(use_pallas=not args.no_pallas)
+        record["delta_err_over_increment"] = check_delta(ops, grid)
     multi, _ = make_multistep_fn(
-        ops, numerics, atol=0.01, rtol=1e-6, static_steps=False
+        ops, NumericsOptions(), atol=0.01, rtol=1e-6, static_steps=False
     )
     x = np.arange(grid.nx) / grid.nx
     y = np.arange(grid.ny) / grid.ny
@@ -151,60 +124,22 @@ def main(argv=None):
     )
     t = jnp.asarray(0.0)
     h = jnp.asarray(args.dt)
-
-    n_small, n_big = 2, args.steps + 2
-
-    def fence(arr, e):
-        return float(arr[0, 0, 0, 0]) + float(e)
-
-    uw = {}
-    enorm0 = None
-    for nst in (n_small, n_big):
-        u1, t1, e1 = multi(u, t, h, nst)
-        fence(u1, e1)
-        uw[nst] = u1
-        enorm0 = float(e1)
-
-    times = {n_small: [], n_big: []}
-    outs = {}
-    enorm = enorm0
-    for rep in range(args.repeats):
-        for nst in (n_small, n_big):
-            pert = 1e-9 * (1 + 2 * rep + (nst == n_big))
-            up = u * (1.0 + pert) + pert
-            fence(up, 0.0)
-            t0 = time.perf_counter()
-            u1, t1, e1 = multi(up, t, h, nst)
-            fence(u1, e1)
-            times[nst].append(time.perf_counter() - t0)
-            outs[nst] = u1
-            enorm = e1
-    for nst in (n_small, n_big):
-        assert not bool(jnp.array_equal(outs[nst], uw[nst])), (
-            "timed output identical to warmup output - dedupe suspected"
-        )
-
-    step_time = (min(times[n_big]) - min(times[n_small])) / (
-        n_big - n_small
+    i32 = lambda n: jnp.asarray(n, jnp.int32)
+    multi(u, t, h, i32(2))  # compile
+    step_time, (_, _, enorm) = bench.slope_time(
+        multi, lambda n: (u, t, h, i32(n)), 2, args.steps + 2,
+        args.repeats,
     )
     dof = grid.n_dofs
     rate = dof / step_time
     assert np.isfinite(float(enorm)), "benchmark step diverged"
-    if args.verbose:
-        print(
-            "platform=%s grid=%s dof=%d step_time=%.4fs enorm=%.3g"
-            % (platform, grid.Sshape, dof, step_time, enorm0),
-            file=sys.stderr,
-        )
-    print(json.dumps({
-        "metric": "implicit KS step DOF-updates/sec/chip "
-                  "(3D %dx%dx%d, 3 dofs, f64, ROS34PW2%s)"
-                  % (grid.nx, grid.ny, grid.nz,
-                     ", XLA path" if args.no_pallas else ""),
-        "value": round(rate, 1),
-        "unit": "DOF-updates/sec/chip",
-        "vs_baseline": round(rate / BASELINE_DOF_UPDATES_PER_SEC, 3),
-    }))
+    print(json.dumps(dict(
+        record,
+        metric="implicit KS step DOF-updates/sec (3D %dx%dx%d, 3 dofs, "
+               "f64, ROS34PW2)" % (grid.nx, grid.ny, grid.nz),
+        value=rate, step_s=step_time, unit="DOF-updates/sec",
+        vs_baseline=rate / BASELINE_DOF_UPDATES_PER_SEC,
+    )))
     return 0
 
 

@@ -16,7 +16,7 @@ tier's curve crosses 1 is the h that tier can sustain.
 
 Timing discipline per CLAUDE.md: chained work inside one jit
 (multistep), host-transfer fence, slope timing, perturbed inputs.
-RUN ALONE on the chip (1-core host).
+RUN ALONE on the card.
 
 Usage: python tools/probe_hgap.py [--prefix solutions/agg2d_r4]
        [--hs 1,2,4,8,16,32] [--iters ...] [--time]

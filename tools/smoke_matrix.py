@@ -65,7 +65,8 @@ def main(argv=None):
             dict(adapt_type="none"),
             dict(adapt_type="none", ts_type="arkimex"),
             dict(sweep_dtype="float64"),
-            dict(stage_delta=False),
+            dict(stage_delta=True),
+            dict(stage_delta=True, device_loop=True),
             dict(pc_fft="on"),
             dict(pc_fft="on", ksp_type="gmres_scipy"),
             dict(ts_type="arkimex", device_loop=True),

@@ -45,6 +45,28 @@ def main(argv=None):
     if args.convergence:
         return convergence(args)
 
+    r = gate(nx=args.nx, steps=args.steps, dt=args.dt, ksp=args.ksp,
+             iters=args.iters, block=args.block)
+    print(
+        "nx=%d steps=%d dt=%g t=%g wall=%.2fs (%.1f steps/s)"
+        % (args.nx, r["steps"], args.dt, r["t"], r["wall"],
+           r["steps"] / r["wall"])
+    )
+    print(
+        "max abs error=%.3e  deviation amplitude=%.3e  relative=%.3e"
+        % (r["max_abs_err"], r["amplitude"], r["rel_err"])
+    )
+    print(
+        "reference figure for this workload: ~14 min for 2080 steps "
+        "(~2.5 steps/s) on the author's PC"
+    )
+    return 0
+
+
+def gate(nx=128, steps=2080, dt=1.0, ksp=None, iters=None, block=1):
+    """Run the manufactured-solution workload; returns a dict with the
+    step count, final t, wall seconds, max abs error against the exact
+    solution, the deviation amplitude and their ratio (rel_err)."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -52,39 +74,27 @@ def main(argv=None):
     from ksfd_tpu.solvers import Solver
     from manufactured import make_problem, exact_state
 
-    ps, grid, ops = make_problem(nx=args.nx)
+    ps, grid, ops = make_problem(nx=nx)
     kw = dict(adapt_type="none")
-    if args.ksp:
-        kw["ksp_type"] = args.ksp
-    if args.iters:
-        kw["ksp_iters"] = args.iters
+    if ksp:
+        kw["ksp_type"] = ksp
+    if iters:
+        kw["ksp_iters"] = iters
     numerics = NumericsOptions(**kw)
     solver = Solver(
-        ops, numerics, t0=0.0, dt=args.dt, tmax=1e18,
-        maxsteps=args.steps, rtol=1e-6, atol=0.01,
-        block_steps=args.block,
+        ops, numerics, t0=0.0, dt=dt, tmax=1e18,
+        maxsteps=steps, rtol=1e-6, atol=0.01,
+        block_steps=block,
     )
     u0 = exact_state(ps, grid, 0.0)
     t0 = time.perf_counter()
     u = np.asarray(solver.solve(jnp.asarray(u0)))
     elapsed = time.perf_counter() - t0
-    tfinal = solver.t
-    uex = exact_state(ps, grid, tfinal)
-    err = np.abs(u - uex)
+    uex = exact_state(ps, grid, solver.t)
+    err = np.abs(u - uex).max()
     amp = np.abs(uex - 9000.0).max()
-    print(
-        "nx=%d steps=%d dt=%g t=%g wall=%.2fs (%.1f steps/s)"
-        % (args.nx, solver.k, args.dt, tfinal, elapsed, solver.k / elapsed)
-    )
-    print(
-        "max abs error=%.3e  deviation amplitude=%.3e  relative=%.3e"
-        % (err.max(), amp, err.max() / amp)
-    )
-    print(
-        "reference figure for this workload: ~14 min for 2080 steps "
-        "(~2.5 steps/s) on the author's PC"
-    )
-    return 0
+    return dict(steps=solver.k, t=solver.t, wall=elapsed,
+                max_abs_err=err, amplitude=amp, rel_err=err / amp)
 
 
 def convergence(args):
